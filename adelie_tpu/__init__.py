@@ -1,14 +1,16 @@
-"""adelie_tpu — a TPU-native group elastic net framework.
+"""adelie_tpu — a group elastic net framework for accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design with the capability surface of the
 reference ``adelie`` package (group lasso / elastic net path solver with
 BASIL screening, GLM proximal Newton, structured matrices, constraints,
-CV, diagnostics), built TPU-first:
+CV, diagnostics), built for the device:
 
-* the screen-set inner solver runs in covariance form against an
-  MXU-computed Gram (see ``adelie_tpu/solver/pin.py``),
+* the screen-set inner solver runs in covariance form against a
+  device-computed Gram (see ``adelie_tpu/solver/pin.py``),
 * all O(n)/O(p) work is a handful of large sharded matmuls per lambda,
 * dynamic screen/active sets are fixed-capacity masked device buffers,
+* hand-written kernels are chosen per backend in one table
+  (``adelie_tpu/kernels.py``),
 * scaling is via ``jax.sharding`` meshes (see ``adelie_tpu/parallel``),
   not threads.
 """
@@ -17,32 +19,37 @@ __version__ = "0.1.0"
 
 import os as _os
 
-# XLA compile times on TPU are large for the control-flow-heavy pin solver;
-# a persistent compile cache makes warm starts ~free across processes
-# (the analog of the reference setting OpenMP env defaults at import,
-# adelie/__init__.py:11-19).
-if not _os.environ.get("ADELIE_TPU_NO_CACHE"):
-    try:
-        import jax as _jax
 
-        if _jax.config.jax_compilation_cache_dir is None:
-            _jax.config.update(
-                "jax_compilation_cache_dir",
-                _os.path.expanduser("~/.cache/adelie_tpu_xla"),
-            )
-            # 0.1 not the default 1.0: the pin/BASIL drivers compile ~19
-            # executables per fit signature and the sub-second ones
-            # (scatter, convert, broadcast glue) otherwise re-compile in
-            # every fresh process (r5 cold-start probe: 8 of 19 misses)
-            _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-            # XLA:CPU AOT results embed host CPU feature flags; reusing
-            # them across machines (or sandbox feature-detection changes)
-            # logs loud SIGILL warnings.  The cache win is the HLO-level
-            # entry, so keep the XLA-internal caches out of it.
-            _jax.config.update("jax_persistent_cache_enable_xla_caches",
-                               "none")
-    except Exception:  # pragma: no cover
-        pass
+def _configure_compile_cache():
+    """Persistent compile cache, so warm starts are cheap across processes
+    (the analog of the reference setting OpenMP env defaults at import,
+    adelie/__init__.py:11-19).
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is JAX's own setting and is
+    used as it is.  Otherwise a package running from a source checkout
+    caches in ``<checkout>/.jax_cache``; an installed package sets none.
+    """
+    import jax
+
+    if jax.config.jax_compilation_cache_dir is None:
+        root = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+        if not _os.path.exists(_os.path.join(root, "pyproject.toml")):
+            return
+        jax.config.update("jax_compilation_cache_dir",
+                          _os.path.join(root, ".jax_cache"))
+    # 0.1 not the default 1.0: the pin/BASIL drivers compile ~19
+    # executables per fit signature and the sub-second ones (scatter,
+    # convert, broadcast glue) otherwise re-compile in every process
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+    # keep XLA's own caches (XLA:CPU results that pin host CPU features,
+    # the GPU autotune cache) out of it: on the H100 a second process
+    # started no slower without them (PERF.md), and on the CPU reloading
+    # them on another host logs spurious SIGILL warnings
+    jax.config.update("jax_persistent_cache_enable_xla_caches", "none")
+
+
+if not _os.environ.get("ADELIE_TPU_NO_CACHE"):
+    _configure_compile_cache()
 
 from . import bcd
 from . import configs as _configs_mod

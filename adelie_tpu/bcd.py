@@ -4,7 +4,7 @@ Solves the (eigenbasis-rotated) group elastic-net block update
 
     minimize_x  1/2 x' diag(L) x - v' x + l1 ||x||_2 + l2/2 ||x||_2^2
 
-with ``L >= 0`` diagonal.  This is a TPU-native (pure-JAX, jittable,
+with ``L >= 0`` diagonal.  This is a device-native (pure-JAX, jittable,
 mask-safe) re-implementation of the math in the reference's
 ``adelie/src/include/adelie_core/bcd/unconstrained/newton.hpp`` (solution
 structure at :44-111) and ``bcd/utils.hpp`` (root function and bounds):

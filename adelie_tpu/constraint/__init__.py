@@ -3,7 +3,7 @@ adelie/src/include/adelie_core/constraint/).
 
 The reference solves the constrained BCD block update with a proximal
 Newton method on the dual (constraint/utils.hpp solve_proximal_newton) with
-pinball/NNLS inner solvers.  The TPU-native design here uses **ADMM** on
+pinball/NNLS inner solvers.  The device-native design here uses **ADMM** on
 the primal instead (the reference itself ships an ADMM variant for
 one-sided constraints, constraint_one_sided.ipp:300-460): every constraint
 is expressed as an interval constraint  ``lo <= A Q x <= hi``  on the

@@ -130,7 +130,8 @@ def pn_block_solve(
             def ellipse_branch(_):
                 # x*(mu) = 0 — certify, converge, or backtrack
                 first_zero = (it == 0) & init_zero
-                conv0 = jnp.abs(jnp.dot(dmu, px_prev)) / df
+                conv0 = jnp.abs(jnp.dot(dmu, px_prev,
+                                        precision=_PRECISION)) / df
                 converged = prev_ok & (conv0 <= tol)
 
                 def try_zero(_):
@@ -149,7 +150,7 @@ def pn_block_solve(
                     # residual norm at (1-slack) l1 + slack * prev
                     target = (1 - slack) * l1 + slack * mrn_prev
                     a = jnp.sum(Pt_dmu * Pt_dmu)
-                    b = jnp.dot(mu_resid, Pt_dmu)
+                    b = jnp.dot(mu_resid, Pt_dmu, precision=_PRECISION)
                     cq = mrn * mrn - target * target
                     disc = jnp.maximum(b * b - a * cq, 0.0)
                     t_star = (-b + jnp.sqrt(disc)) / jnp.maximum(a, 1e-300)
@@ -188,7 +189,8 @@ def pn_block_solve(
 
             def newton_branch(_):
                 px = jnp.matmul(P, x_new, precision=_PRECISION)
-                conv = jnp.abs(jnp.dot(dmu, px_prev - px)) / df
+                conv = jnp.abs(jnp.dot(dmu, px_prev - px,
+                                       precision=_PRECISION)) / df
                 converged = prev_ok & (conv <= tol)
 
                 def finish(_):

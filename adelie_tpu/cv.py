@@ -5,7 +5,7 @@ zero-weighting** — the training fit runs with validation weights set to 0
 and renormalized, and the validation loss is recovered as
 ``(full-data loss - train-weight-sum * train loss) / val-weight-sum``.
 
-TPU-first redesign (this file is NOT a port of reference cv.py):
+Device-first redesign (this file is NOT a port of reference cv.py):
 
 * Every fold is fitted EXACTLY on the common full-data lambda grid, so the
   reference's per-fold path augmentation + interpolation machinery
@@ -29,6 +29,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from . import matrix as matrix_mod
+from .configs import f32_contractions
 from .diagnostic import coefficient, predict
 from .logger import logger
 from .solver import grpnet
@@ -168,6 +169,7 @@ def _can_batch(X, glm, grpnet_params):
     return glm.name in _SEPARABLE_GLMS or glm.name == "cox"
 
 
+@f32_contractions
 def cv_grpnet(
     X,
     glm,

@@ -1,6 +1,6 @@
 """GLM loss classes.
 
-TPU-native re-implementation of the reference GLM interface
+Device re-implementation of the reference GLM interface
 (``glm_base.hpp:19-93``): each class provides pure-JAX, jittable
 
 * ``gradient(eta) -> (n,)``  — NEGATIVE loss gradient wrt eta (the weighted

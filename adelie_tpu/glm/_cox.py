@@ -1,6 +1,6 @@
 """Cox proportional hazards GLM (stratified start-stop, Efron/Breslow ties).
 
-TPU-native re-design of the reference ``GlmCox`` (glm/glm_cox.ipp:1-752,
+Device re-design of the reference ``GlmCox`` (glm/glm_cox.ipp:1-752,
 math documented in adelie/glm.py:199-330).  The reference computes at-risk
 sums with per-stratum sequential two-pointer prefix sums
 (``_partial_sum_fwd:19``, ``_partial_sum_bwd:65``, ``_at_risk_sum:119``,
@@ -323,7 +323,7 @@ class GlmCox(GlmBase):
         # risk_total <= 0 only occur where the status*wm coefficient is 0,
         # so the sentinel never contributes (0 * finite == 0; the reference
         # clips at -double max, glm_cox.ipp:500, which 0-multiplies the same
-        # way in f64 but is out of f32 range on TPU).
+        # way in f64 but is out of f32 range).
         ok = risk_total > 0
         log_term = jnp.where(
             ok, jnp.log(jnp.where(ok, risk_total, 1.0)), -1e30

@@ -2,7 +2,7 @@
 
 Users may also implement custom matrices by subclassing
 :class:`MatrixNaiveBase` and providing the functional hot ops
-(``mul``/``gather``/``tmul``) as jittable callables — the TPU-native analog of
+(``mul``/``gather``/``tmul``) as jittable callables — the device-native analog of
 the reference's pybind trampoline extension path (py_matrix.cpp:627-830).
 """
 
@@ -182,8 +182,8 @@ def sparse(mat, *, method: str = "naive", n_threads: int = 1, dtype=None,
     ``layout`` (naive only): "auto" | "dense" | "padded" — see
     matrix/_sparse.py.  Padded CSC/CSR planes turn both products into one
     vectorized gather + lane reduction (no scatters); auto DENSIFIES
-    above the measured ~0.2% density crossover when the dense array fits
-    ~2 GB (dense MXU matvecs stream ~750x faster than TPU gathers); below
+    above a ~0.2% density crossover when the dense array fits ~2 GB
+    (dense matvecs stream far faster than dynamic gathers); below
     it builds padded planes, unless nnz skew makes them larger than the
     (cap-respecting) dense array — then dense wins on both axes.  The
     BCOO fallback was removed in r5 (half the padded bandwidth, no
@@ -225,17 +225,16 @@ def snp_unphased(io, *, n_threads: int = 1, dtype=None, mesh=None,
     ``mesh``: a ``jax.sharding.Mesh`` (or None to use the
     ``adelie_tpu.parallel.use_mesh`` active mesh) — the packed byte
     (observation) axis shards across it; gradients run as per-device
-    decode-matmuls + an ICI all-reduce (see matrix/_snp.py).
+    decode-matvecs + an all-reduce (see matrix/_snp.py).
 
     ``streaming``: ``True`` keeps the packed bytes in HOST memory and
     streams SNP tiles through the device per full-matrix product — the
-    out-of-HBM path for matrices larger than a chip (the 1M-SNP x
-    100K-sample north star is ~25 GB packed vs 16 GB HBM; the reference
-    streams from mmap for the same reason, io_snp_base.hpp:25-87).
-    ``"auto"`` picks streaming when the packed bytes (x mesh size if
-    sharded) exceed ``configs.snp_hbm_budget``.  ``tile_snps``: SNP rows
+    path for panels larger than the device memory (the reference streams
+    from mmap for the same reason, io_snp_base.hpp:25-87).
+    ``"auto"`` picks streaming when the packed bytes exceed the mesh size
+    times the per-device ``configs.snp_hbm_budget``.  ``tile_snps``: SNP rows
     per streamed tile."""
-    from ..configs import configs as _cfg
+    from ..configs import snp_hbm_budget
     from ._snp import MatrixNaiveSNPUnphased
     from ._snp_stream import MatrixNaiveSNPUnphasedStreamed
 
@@ -248,7 +247,8 @@ def snp_unphased(io, *, n_threads: int = 1, dtype=None, mesh=None,
         m = mesh if mesh is not None else active_mesh()
         D = int(_np.prod(m.devices.shape)) if m is not None else 1
         packed_bytes = int(io.snps()) * ((int(io.rows()) + 3) // 4)
-        streaming = packed_bytes > D * _cfg.snp_hbm_budget
+        budget = snp_hbm_budget()
+        streaming = budget is not None and packed_bytes > D * budget
     if streaming:
         return MatrixNaiveSNPUnphasedStreamed(
             io, dtype=dtype, tile_snps=tile_snps, mesh=mesh

@@ -8,10 +8,10 @@ Full:   X = [Y, -Y]                       (n, 2*m*d)
 
 where D_k = diag(mask[:, k]).  All ops factor through the mask:
 e.g. ``Y^T u`` column block k is ``Z^T (mask_k * u)``, computed for ALL k
-at once — dense Z rides one MXU einsum (``'nd,nm,n->md'``); sparse Z keeps
+at once — dense Z rides one einsum (``'nd,nm,n->md'``); sparse Z keeps
 its sparsity via the padded CSC/CSR planes of matrix/_sparse.py, so the
 same product is one vectorized gather of the masked (n, m) right-hand side
-plus a lane reduction (no densification, no scatters — the TPU analog of
+plus a lane reduction (no densification, no scatters — the device analog of
 the reference's sparse convex-ReLU kernels).
 """
 

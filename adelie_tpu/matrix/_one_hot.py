@@ -1,11 +1,11 @@
 """Implicit one-hot expansion (reference matrix_naive_one_hot.{hpp,ipp};
 factory matrix.py:1073, semantics documented there).
 
-TPU design: never materializes the expansion.  Column metadata
+Device design: never materializes the expansion.  Column metadata
 (feature index, level, continuous flag) is precomputed on host; the hot
 ops are
 
-* ``mul``    — continuous part is one MXU matmul; ALL discrete features at
+* ``mul``    — continuous part is one matmul; ALL discrete features at
   once are one scatter-add ``out[outer[g] + Z_int[:, g]] += u_i``,
 * ``tmul``   — one gather ``beta[outer[g] + Z_int[:, g]]`` + row-sum,
 * ``gather`` — vectorized ``where(cont, Z[:, f], Z[:, f] == level)``.

@@ -1,24 +1,22 @@
 """Packed SNP matrices (reference matrix_naive_snp_unphased.{hpp,ipp},
 matrix_naive_snp_phased_ancestry.{hpp,ipp}).
 
-TPU design: the genotype matrix lives on device **2-bit packed**
-(4 entries/byte, (p, ceil(n/4)) uint8 — 16x less HBM traffic than f32).
-Ops unpack on the fly with shift/mask VPU ops that XLA fuses into the
-consuming matmul; NA entries (code 3, unphased only) substitute the
-column's impute value (reference matrix_naive_snp_unphased.ipp decode).
+Device design: the genotype matrix lives on device **2-bit packed**
+(4 entries/byte, (p, ceil(n/4)) uint8 — 16x less device-memory traffic
+than f32).  Ops unpack on the fly with shift/mask ops; NA entries (code 3,
+unphased only) substitute the column's impute value (reference
+matrix_naive_snp_unphased.ipp decode).  The full-p gradient ``X^T (w r)``
+runs as the fused decode-matvec kernel where the kernel table
+(``adelie_tpu/kernels.py``) has one, and as a chunked XLA decode +
+contraction elsewhere.
 
-The full ``mul`` streams columns in chunks so the dense decode never
-exceeds a (n, chunk) tile.
-
-**Mesh sharding** (the TPU-native replacement of the reference's
-row-blocked OpenMP kernels over X, matrix/utils.hpp:131-330, on its
-flagship GWAS workload): with ``mesh=`` the packed byte axis — i.e. the
-observation axis, 4 samples/byte — is sharded over the mesh.  The
-gradient ``X^T (w r)`` becomes per-device fused decode-matmuls over the
-local byte shard + an all-reduce riding ICI (explicit ``psum`` under
-``shard_map`` on the Pallas path; GSPMD-inserted on the XLA path).  The
-1M-SNP x 100K-sample north star (~25 GB packed) is out of single-chip
-HBM reach; this sharding is how it spreads over >=2 chips.
+**Mesh sharding** (the replacement of the reference's row-blocked OpenMP
+kernels over X, matrix/utils.hpp:131-330, on its flagship GWAS workload):
+with ``mesh=`` the packed byte axis — i.e. the observation axis, 4
+samples/byte — is sharded over the mesh.  The gradient becomes per-device
+decode-matvecs over the local byte shard + an all-reduce (explicit
+``psum`` under ``shard_map`` on the kernel path; GSPMD-inserted on the
+XLA path).
 """
 
 import functools
@@ -69,19 +67,20 @@ class MatrixNaiveSNPUnphased(MatrixNaiveBase):
 
     def _init_packed(self, packed, mesh):
         """Place the packed bytes on device, byte(=observation)-axis sharded
-        over ``mesh`` (padding bytes decode to code 0 and are sliced/zeroed
-        out by every op)."""
+        over ``mesh``.  Rows are padded to a multiple of 4 bytes per device
+        (the decode kernel reads 32-bit words); padding bytes decode to
+        code 0 and are sliced/zeroed out by every op."""
         from ..parallel import active_mesh
 
         mesh = mesh if mesh is not None else active_mesh()
         self._mesh = mesh
+        D = 1 if mesh is None else int(np.prod(mesh.devices.shape))
+        pad = (-packed.shape[1]) % (4 * D)
+        if pad:
+            packed = np.pad(packed, ((0, 0), (0, pad)))
         if mesh is None:
             self._packed = jnp.asarray(packed)
             return
-        D = int(np.prod(mesh.devices.shape))
-        pad = (-packed.shape[1]) % D
-        if pad:
-            packed = np.pad(packed, ((0, 0), (0, pad)))
         self._packed = jax.device_put(
             packed, NamedSharding(mesh, P(None, mesh.axis_names[0]))
         )
@@ -115,76 +114,7 @@ class MatrixNaiveSNPUnphased(MatrixNaiveBase):
         return f(data, jnp.asarray(v), jnp.asarray(w))
 
     def mul_spec(self):
-        n = self._rows
-        p = self._cols
-        CH = self._CHUNK
-        dtype = self.dtype
-        n_chunks = (p + CH - 1) // CH
-        p_pad = n_chunks * CH
-
-        # fused Pallas decode-matmul on TPU f32 (16x less HBM traffic than
-        # materializing decoded blocks); XLA lax.map fallback elsewhere
-        use_pallas = (
-            jax.default_backend() == "tpu" and jnp.dtype(dtype) == jnp.float32
-        )
-        if use_pallas:
-            from ._snp_pallas import snp_mul_pallas
-
-            if self._mesh is not None:
-                # per-device Pallas partials over the local byte shard +
-                # explicit psum over ICI.  Bytes are contiguously sharded, so
-                # device d's u block [4*d*nb_loc, 4*(d+1)*nb_loc) lines up
-                # with its byte block exactly (4 samples/byte).
-                mesh = self._mesh
-                axis = mesh.axis_names[0]
-                nb_pad = self._packed.shape[1]
-                n_full = 4 * nb_pad
-
-                def local(pk, ul, im):
-                    return jax.lax.psum(snp_mul_pallas(pk, ul, im), axis)
-
-                sharded_mul = jax.shard_map(
-                    local, mesh=mesh,
-                    in_specs=(P(None, axis), P(axis), P()),
-                    out_specs=P(), check_vma=False,
-                )
-
-                def f(data, v, w):
-                    u = (v * w).astype(dtype)
-                    u_pad = jnp.zeros((n_full,), dtype).at[:n].set(u)
-                    return sharded_mul(data["packed"], u_pad, data["impute"])
-
-                return f, {"packed": self._packed, "impute": self._impute}
-
-            def f(data, v, w):
-                u = (v * w).astype(dtype)
-                return snp_mul_pallas(data["packed"], u, data["impute"])
-
-            return f, {"packed": self._packed, "impute": self._impute}
-
-        def f(data, v, w):
-            u = (v * w).astype(dtype)
-            packed = data["packed"]
-            impute = data["impute"]
-            if p_pad != p:
-                packed = jnp.pad(packed, ((0, p_pad - p), (0, 0)))
-                impute = jnp.pad(impute, (0, p_pad - p))
-            packed = packed.reshape(n_chunks, CH, -1)
-            impute = impute.reshape(n_chunks, CH)
-
-            def one(args):
-                rows, imp = args
-                codes = _unpack_cols(rows, n, dtype)
-                blk = jnp.where(codes == 3.0, imp[None, :], codes)
-                return jnp.einsum("nk,n->k", blk, u, precision=_PRECISION)
-
-            # lax.map: ONE traced chunk body regardless of p (the python
-            # loop version unrolls p/CH matmuls into the HLO, which blows
-            # up compile time inside the lambda-chunk scan)
-            out = jax.lax.map(one, (packed, impute))
-            return out.reshape(-1)[:p]
-
-        return f, {"packed": self._packed, "impute": self._impute}
+        return _snp_mul_spec(self, na=True)
 
     def tmul(self, beta):
         beta = jnp.asarray(beta, self.dtype)
@@ -228,60 +158,87 @@ class MatrixNaiveSNPPhasedAncestry(MatrixNaiveSNPUnphased):
         return _unpack_cols(rows, self._rows, self.dtype)
 
     def mul_spec(self):
-        n = self._rows
-        p = self._cols
-        CH = self._CHUNK
-        dtype = self.dtype
-        n_chunks = (p + CH - 1) // CH
-        p_pad = n_chunks * CH
+        # phased codes are 0..2 (never NA): the select-free decode
+        return _snp_mul_spec(self, na=False)
 
-        if (
-            jax.default_backend() == "tpu"
-            and jnp.dtype(dtype) == jnp.float32
-        ):
-            # phased codes are 0..2 (never NA): the select-free kernel
-            from ._snp_pallas import snp_mul_pallas_no_na
 
-            if self._mesh is not None:
-                mesh = self._mesh
-                axis = mesh.axis_names[0]
-                nb_pad = self._packed.shape[1]
-                n_full = 4 * nb_pad
+def _impute_arg(data):
+    return (data["impute"],) if "impute" in data else ()
 
-                def local(pk, ul):
-                    return jax.lax.psum(snp_mul_pallas_no_na(pk, ul), axis)
 
-                sharded_mul = jax.shard_map(
-                    local, mesh=mesh,
-                    in_specs=(P(None, axis), P(axis)),
-                    out_specs=P(), check_vma=False,
-                )
+def _snp_mul_spec(mat, na):
+    """``mul_spec`` of the packed SNP matrices: the fused decode-matvec
+    kernel where ``kernels.choose`` picks one, else a ``lax.map`` over
+    CH-column chunks (decoded block, then contraction)."""
+    from ..kernels import choose
 
-                def f(data, v, w):
-                    u = (v * w).astype(dtype)
-                    u_pad = jnp.zeros((n_full,), dtype).at[:n].set(u)
-                    return sharded_mul(data["packed"], u_pad)
+    n = mat._rows
+    p = mat._cols
+    CH = mat._CHUNK
+    dtype = mat.dtype
+    data = {"packed": mat._packed}
+    if na:
+        data["impute"] = mat._impute
+    kernel = choose(dtype)
 
-                return f, {"packed": self._packed}
+    if kernel:
+        from ._snp_triton import snp_mul
+
+        interpret = kernel == "interpret"
+
+        def local(packed, u, impute=None):
+            return snp_mul(packed, u, impute, interpret=interpret)
+
+        if mat._mesh is not None:
+            # per-device partials over the local byte shard + psum.  Bytes
+            # are contiguously sharded, so device d's u block
+            # [4*d*nb_loc, 4*(d+1)*nb_loc) lines up with its byte block.
+            mesh = mat._mesh
+            axis = mesh.axis_names[0]
+            n_full = 4 * mat._packed.shape[1]
+            sharded = jax.shard_map(
+                lambda *a: jax.lax.psum(local(*a), axis), mesh=mesh,
+                in_specs=(P(None, axis), P(axis)) + ((P(),) if na else ()),
+                out_specs=P(), check_vma=False,
+            )
 
             def f(data, v, w):
-                u = (v * w).astype(dtype)
-                return snp_mul_pallas_no_na(data["packed"], u)
+                u = jnp.zeros((n_full,), dtype).at[:n].set(
+                    (v * w).astype(dtype))
+                return sharded(data["packed"], u, *_impute_arg(data))
 
-            return f, {"packed": self._packed}
+            return f, data
 
         def f(data, v, w):
-            u = (v * w).astype(dtype)
-            packed = data["packed"]
-            if p_pad != p:
-                packed = jnp.pad(packed, ((0, p_pad - p), (0, 0)))
-            packed = packed.reshape(n_chunks, CH, -1)
+            return local(data["packed"], (v * w).astype(dtype),
+                         *_impute_arg(data))
 
-            def one(rows):
-                blk = _unpack_cols(rows, n, dtype)
-                return jnp.einsum("nk,n->k", blk, u, precision=_PRECISION)
+        return f, data
 
-            out = jax.lax.map(one, packed)
-            return out.reshape(-1)[:p]
+    n_chunks = (p + CH - 1) // CH
+    p_pad = n_chunks * CH
 
-        return f, {"packed": self._packed}
+    def f(data, v, w):
+        u = (v * w).astype(dtype)
+        packed = data["packed"]
+        impute = data["impute"] if na else jnp.zeros((p,), dtype)
+        if p_pad != p:
+            packed = jnp.pad(packed, ((0, p_pad - p), (0, 0)))
+            impute = jnp.pad(impute, (0, p_pad - p))
+        packed = packed.reshape(n_chunks, CH, -1)
+        impute = impute.reshape(n_chunks, CH)
+
+        def one(args):
+            rows, imp = args
+            blk = _unpack_cols(rows, n, dtype)
+            if na:
+                blk = jnp.where(blk == 3.0, imp[None, :], blk)
+            return jnp.einsum("nk,n->k", blk, u, precision=_PRECISION)
+
+        # lax.map: ONE traced chunk body regardless of p (a python loop
+        # unrolls p/CH matmuls into the HLO, which blows up compile time
+        # inside the lambda-chunk scan)
+        out = jax.lax.map(one, (packed, impute))
+        return out.reshape(-1)[:p]
+
+    return f, data

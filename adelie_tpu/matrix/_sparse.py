@@ -2,15 +2,10 @@
 matrix_cov_sparse.{hpp,ipp}; factory matrix.py:1301; sparse kernels
 matrix/utils.hpp:362-1015).
 
-TPU design verdict (r5, measured): unstructured sparse products on TPU
-are bounded by the device's dynamic-gather rate, and that bound is FAR
-below the dense stream rate — ``jnp.take`` of 4M f32 through a 50k
-vector measures 0.57 GB/s useful (0.9 sorted) vs ~650-750 GB/s for the
-dense einsum on the same shape, so beating dense at density d needs
-~d * 2 * 650 GB/s of useful sparse bandwidth (13 GB/s at d=1%): a
-15-25x gap no kernel on this hardware can close, Pallas included (the
-same VPU dynamic-addressing rate bounds in-kernel gathers).  The design
-is therefore:
+Design: unstructured sparse products are bounded by the device's
+dynamic-gather rate, which sits far below the dense stream rate, so
+beating dense at density d needs ~d * 2 * (dense rate) of useful sparse
+bandwidth.  The design is therefore:
 
 * ``dense`` above the measured crossover (~0.2% density, with margin)
   whenever the dense array fits ``_DENSE_BYTES_MAX`` — the fast path;
@@ -18,9 +13,8 @@ is therefore:
   planes; one vectorized gather + lane reduction, no scatters) — below
   the crossover this wins on BOTH footprint and time, and it is the
   correctness path for matrices too big to densify;
-* the BCOO lowering that used to be the skew fallback was REMOVED in r5
-  (VERDICT r4 #7): it measured HALF the padded path's bandwidth
-  (BENCH_r04 sparse: 0.5 vs 1.0 GB/s useful) with no remaining niche —
+* the BCOO lowering that used to be the skew fallback was removed: it
+  ran at half the padded path's bandwidth with no remaining niche —
   extreme-skew matrices take the padded planes (memory-hungry on skew,
   but correct) or densify when the dense array is the smaller object.
 
@@ -38,14 +32,11 @@ from .base import MatrixCovBase, MatrixNaiveBase
 
 _PRECISION = jax.lax.Precision.HIGHEST
 
-# Above this density (and below the HBM cap) "auto" DENSIFIES: measured
-# on v5e (BENCH_r04 sparse block, n=50k x p=8k at 1% density) the dense
-# einsum streams at ~750 GB/s while the padded-gather path achieves
-# ~1 GB/s useful (row-granularity gathers are VPU-serialized on TPU), so
-# the speed crossover sits near density 4B/(750 GB/s) = 8B*d/(1 GB/s)
-# -> d* ~ 0.07%.  The 0.2% threshold keeps a ~3x safety margin for the
-# gather rate varying with n; below it the padded planes win on both
-# footprint and time.
+# Above this density (and below the device-memory cap) "auto" DENSIFIES:
+# the speed crossover sits where the dense stream's 4 B per entry costs
+# as much as the gathers' 8 B per nonzero at the gather rate.  The value
+# comes from earlier hardware and is not measured on this card yet;
+# below it the padded planes win on footprint.
 _DENSE_DENSITY_MIN = 2e-3
 _DENSE_BYTES_MAX = 2 << 30
 

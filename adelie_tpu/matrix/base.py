@@ -1,16 +1,16 @@
 """Matrix protocol for adelie_tpu.
 
-TPU-native re-design of the reference's ``MatrixNaiveBase`` virtual interface
+Device re-design of the reference's ``MatrixNaiveBase`` virtual interface
 (reference: adelie/src/include/adelie_core/matrix/matrix_naive_base.hpp:57-143).
 
 Design differences from the reference (deliberate, see SURVEY.md section 7):
 
 * The reference's solver calls ``cmul``/``ctmul``/``bmul``/``btmul`` (each an
-  O(n) pass) inside the coordinate-descent loop.  The TPU solver instead
+  O(n) pass) inside the coordinate-descent loop.  The device solver instead
   *materializes the screened column block once* via :meth:`gather` and runs CD
   in covariance form, so the per-class hot ops are only:
 
-  - :meth:`mul`     — full weighted gradient  ``X^T (w * v)``  (one MXU matmul)
+  - :meth:`mul`     — full weighted gradient  ``X^T (w * v)``  (one matmul)
   - :meth:`gather`  — densify a set of columns into an ``(n, k)`` HBM block
   - :meth:`sq_mul`  — weighted squared column norms
   - :meth:`tmul`    — forward product ``X @ beta`` for predictions
@@ -288,7 +288,8 @@ class MatrixConstraintBase:
 
     def rmmul(self, j, Q):
         """``A[j] @ Q`` -> (d,)."""
-        return self.dense()[j] @ jnp.asarray(Q)
+        return jnp.matmul(self.dense()[j], jnp.asarray(Q),
+                          precision=_PRECISION)
 
     def rvmul(self, j, v):
         """``A[j] . v`` -> scalar."""

@@ -4,7 +4,7 @@ Reference: ``MatrixNaiveDense`` (matrix_naive_dense.{hpp,ipp}) and
 ``MatrixCovDense`` (matrix_cov_dense.{hpp,ipp}).  Here the whole matrix is a
 device-resident ``jax.Array`` (optionally sharded over rows via
 ``adelie_tpu.parallel``), and every op is a single fused XLA computation:
-the reference's blocked-OpenMP kernels (matrix/utils.hpp) collapse into MXU
+the reference's blocked-OpenMP kernels (matrix/utils.hpp) collapse into
 matmuls.
 """
 

@@ -346,7 +346,7 @@ class MatrixNaiveKroneckerEye(MatrixNaiveBase):
 
     Shape is ``(n K, p K)``; column ``q K + k`` equals ``X[:, q]`` scattered
     into rows ``i K + k``.  All ops reshape the ``(nK,)`` operands to
-    ``(n, K)`` and ride a single MXU matmul with the base matrix.
+    ``(n, K)`` and ride a single matmul with the base matrix.
     """
 
     def __init__(self, mat: MatrixNaiveBase, K: int):

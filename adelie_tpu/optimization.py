@@ -1,6 +1,6 @@
 """Small dense QP solvers and scalar optimization utilities.
 
-TPU-native re-implementation of the reference's ``optimization/`` layer
+Device re-implementation of the reference's ``optimization/`` layer
 (``adelie/src/include/adelie_core/optimization/``):
 
 * :func:`pinball_full`  — asymmetric-penalty LS CD
@@ -10,7 +10,7 @@ TPU-native re-implementation of the reference's ``optimization/`` layer
 * :func:`nnls`          — non-negative least squares via the same CD rule
   (reference ``nnls.hpp`` ``StateNNLS``; the full screening/violation
   machinery is unnecessary here because the operands are small dense
-  blocks that live in VMEM),
+  blocks that stay on chip),
 * :func:`search_pivot`  — piecewise-linear pivot search
   (reference ``search_pivot.hpp:6-63``),
 * :func:`symmetric_penalty` — exact minimizer of the symmetric
@@ -20,7 +20,7 @@ TPU-native re-implementation of the reference's ``optimization/`` layer
 The CD solvers are pure-JAX and jittable (``lax.while_loop`` over sweeps,
 ``lax.fori_loop`` over coordinates) — they are invoked per-group inside
 constraint solves where ``d`` is a group size (small), so everything stays
-in VMEM.  They take and return functional ``(x, grad)`` pairs, where
+on chip.  They take and return functional ``(x, grad)`` pairs, where
 ``grad`` is the *residualized* gradient ``v - Q x`` maintained incrementally
 exactly like the reference.
 """
@@ -207,7 +207,7 @@ def lasso_full(quad, penalty, x, grad, max_iters: int = 100000, tol=1e-7):
 def nnls(AtA, Atb, x, max_iters: int = 100000, tol=1e-9):
     """Dense NNLS in covariance form: min_x 1/2 x'(A'A)x - (A'b)'x, x >= 0.
 
-    TPU-native replacement for the reference's screened ``StateNNLS``
+    device-native replacement for the reference's screened ``StateNNLS``
     (optimization/nnls.hpp) — operands here are small per-group blocks, so a
     plain device CD loop beats screening bookkeeping.  Returns (x, grad,
     iters) with ``grad = Atb - AtA x``.

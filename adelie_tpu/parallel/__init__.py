@@ -1,14 +1,14 @@
 """Device-mesh scaling utilities.
 
 The reference's parallel substrate is OpenMP threads over row/column blocks
-(matrix/utils.hpp, SURVEY.md section 2.2/2.12).  The TPU-native replacement:
+(matrix/utils.hpp, SURVEY.md section 2.2/2.12).  The device-native replacement:
 
 * **n-sharding** (data-parallel reductions): the observation dimension of
   ``X``, ``resid``, ``weights`` is sharded over the mesh axis ``"n"``; the
   three large per-lambda contractions (full gradient ``X^T(w r)``, screen
   Gram, residual reconstruction) then run as local matmuls + XLA
   ``psum``-style reductions inserted automatically from sharding
-  annotations, riding ICI.
+  annotations, over the device interconnect.
 * The small covariance-form CD state (A, screen beta/grad) is replicated —
   it is O(S^2) and latency-bound, so replication is the right layout.
 
@@ -94,8 +94,9 @@ def pad_rows_to_multiple(arr, multiple, fill=0.0):
 def distributed_init(coordinator_address=None, num_processes=None,
                      process_id=None, **kwargs):
     """Initialize multi-host JAX over DCN (SURVEY §2.12: the reference has
-    no distributed backend; the TPU replacement is ``jax.distributed``
-    with collectives over ICI within a slice and DCN across hosts).
+    no distributed backend; the replacement is ``jax.distributed`` with
+    collectives over the device interconnect within a host and the network
+    across hosts).
 
     A no-op when already initialized or when the arguments/environment
     (``JAX_COORDINATOR_ADDRESS`` etc.) identify a single process.  After
@@ -123,7 +124,7 @@ def distributed_init(coordinator_address=None, num_processes=None,
 def scenario_shard(n_scenarios, *, n_shards=None, shard_index=None):
     """Indices of the scenarios THIS process runs (round-robin).
 
-    The net-new TPU parallelism axis (SURVEY §2.12 path/fold batching):
+    The net-new device parallelism axis (SURVEY §2.12 path/fold batching):
     independent scenarios — CV folds, lambda sub-paths, phenotypes,
     bootstrap replicates — are striped across hosts; each host fits its
     stripe with its local chips and results are exchanged once at the

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from .. import glm as glm_mod
 from .. import matrix as matrix_mod
+from ..configs import f32_contractions
 from ..utils import types
 from ..logger import logger
 from . import basil
@@ -32,6 +33,7 @@ def _common_state_kwargs(**kw):
     return kw
 
 
+@f32_contractions
 def grpnet(
     X,
     glm,
@@ -73,7 +75,7 @@ def grpnet(
     (1-alpha)/2 ||b_g||_2^2)  with  eta = X b + b0 1 + offsets,
     over a decreasing lambda path with BASIL screening.
 
-    ``screen_cap_active_mult`` (TPU extension, default None = reference
+    ``screen_cap_active_mult`` (extension, default None = reference
     pivot-rule behavior): cap each screen call's SPECULATIVE admissions
     at this multiple of the active-ish count.  On LD/correlated designs
     the pivot rule can admit thousands of near-duplicate groups (EUR
@@ -173,8 +175,8 @@ def grpnet(
         from ..configs import configs as _cfg
 
         if p + int(group_sizes.max()) <= _cfg.screen_all_max:
-            # small-problem fast path: the whole Gram fits the VMEM pin
-            # kernel, so skip BASIL screening entirely (zero KKT retries)
+            # small-problem fast path: the whole Gram is small, so skip
+            # BASIL screening entirely (zero KKT retries)
             screen_set = np.arange(G)
         else:
             screen_set = np.arange(G)[(penalty <= 0) | (alpha <= 0)]
@@ -339,6 +341,7 @@ def finalize_state(state):
     return state
 
 
+@f32_contractions
 def gaussian_cov(A, v, **kwargs):
     """Covariance-method group elastic net (reference solver.py:39-351)."""
     from ._cov import gaussian_cov as _impl
@@ -346,6 +349,7 @@ def gaussian_cov(A, v, **kwargs):
     return _impl(A, v, **kwargs)
 
 
+@f32_contractions
 def bvls(X, y, lower, upper, **kwargs):
     """Bounded-variable least squares (reference solver.py:961)."""
     from ._bvls import bvls as _impl
@@ -353,6 +357,7 @@ def bvls(X, y, lower, upper, **kwargs):
     return _impl(X, y, lower, upper, **kwargs)
 
 
+@f32_contractions
 def pinball(A, S, v, penalty_neg, penalty_pos, **kwargs):
     """Pinball least squares (reference solver.py:1119)."""
     from ._pinball import pinball as _impl
@@ -360,6 +365,7 @@ def pinball(A, S, v, penalty_neg, penalty_pos, **kwargs):
     return _impl(A, S, v, penalty_neg, penalty_pos, **kwargs)
 
 
+@f32_contractions
 def css_cov(S, subset_size=None, **kwargs):
     """Column subset selection (reference solver.py:1274)."""
     from ._css import css_cov as _impl

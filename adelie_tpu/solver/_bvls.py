@@ -3,9 +3,9 @@ solver_bvls.hpp).
 
     minimize_b  1/2 ||y - X b||_W^2   s.t.  lower <= b <= upper
 
-TPU design: the violation-batched screening loop stays on host (small
+Device design: the violation-batched screening loop stays on host (small
 index bookkeeping); each fit gathers the screened columns once, forms their
-weighted Gram on the MXU, and runs the entire screen/active CD refinement
+weighted Gram as one matmul, and runs the entire screen/active CD refinement
 as ONE jitted device call in covariance form (screened_cd.py).  KKT rounds
 cost one ``X^T W r`` matmul each.
 """

@@ -5,11 +5,11 @@ Greedy: start from the empty set, repeatedly add the column maximizing the
 score, maintaining the residual covariance by rank-1 downdates.
 Swapping: cycle positions, re-scoring every candidate against the residual
 covariance w.r.t. the subset minus that position (re-derived here by a
-fresh Cholesky solve — an O(k p^2) MXU matmul instead of the reference's
+fresh Cholesky solve — an O(k p^2) matmul instead of the reference's
 incremental rank-1 Cholesky surgery, solver_css_cov.hpp:260-448).
 
 Scores (reference compute_*_scores, solver_css_cov.hpp:18-137) are computed
-for ALL candidates at once as vectorized array expressions — the TPU analog
+for ALL candidates at once as vectorized array expressions — the device analog
 of the reference's OpenMP-parallel per-candidate loops.
 """
 

@@ -5,9 +5,9 @@ solver_pinball.hpp).
                 + penalty_neg' b_-  +  penalty_pos' b_+
 
 Used standalone and as the inner solver of box/one-sided constraints.
-Same TPU structure as BVLS: host drives violation-batched KKT rounds; each
+Same device structure as BVLS: host drives violation-batched KKT rounds; each
 fit is one jitted covariance-form CD call over the screened rows of A with
-Gram ``A_s S A_s^T`` formed on the MXU.
+Gram ``A_s S A_s^T`` formed as one matmul.
 """
 
 from dataclasses import dataclass, field

@@ -433,7 +433,7 @@ class ConstrainedGaussianDriver:
     """Gaussian path driver with per-group constraints.
 
     Per-lambda fit = one ``pin_cov_solve_constrained`` device call; the
-    residual/gradient/invariance updates are the same MXU products as the
+    residual/gradient/invariance updates are the same matmul products as the
     fused unconstrained path.  When every group is screened (the
     screen-all fast path) the whole path runs lambda-CHUNKED — one device
     call per ``lmda_chunk`` lambdas with the duals riding the scan carry.

@@ -1,7 +1,7 @@
 """Mesh/batch-parallel K-fold CV for the gaussian fast path.
 
 The reference runs CV folds strictly serially (reference cv.py:239); SURVEY
-§2.12 names fold batching as the net-new TPU parallelism axis.  Design:
+§2.12 names fold batching as the net-new device parallelism axis.  Design:
 
 * All K folds share the SAME design matrix and a UNION screen set, so the
   gathered screen block ``Xs`` is built once.  Fold-specific state — the

@@ -1,9 +1,9 @@
 """GLM naive path solver — proximal Newton (IRLS) outer loop.
 
-TPU re-design of ``solver_glm_naive.hpp`` (fit :241-459, update_loss_null
+Device re-design of ``solver_glm_naive.hpp`` (fit :241-459, update_loss_null
 :166-232): per IRLS iteration the working weights change, so the screen
 Gram + batched eigendecompositions are recomputed from the *cached gathered
-block* (one MXU matmul — the analog of the reference recomputing per-group
+block* (one matmul — the analog of the reference recomputing per-group
 ``X.cov`` + eigh under new weights, :361-385), then one jitted covariance-
 form pin solve advances the screen coefficients.  Exception-safe rollback
 (save/load_prev_valid, :315-322) is preserved.

@@ -1,16 +1,16 @@
 """Screen-set ("pin") solver — coordinate descent in covariance form.
 
-TPU-first re-design of the reference's pin solvers
+Accelerator re-design of the reference's pin solvers
 (``solver_gaussian_pin_naive.hpp:26-400`` and ``solver_gaussian_pin_cov.hpp``):
 
 The reference's *naive* CD touches an O(n) residual for every group update.
-On TPU we instead gather the screened columns into a dense block ``X_s``
+Here we instead gather the screened columns into a dense block ``X_s``
 once per screen-set change, form its weighted, centered Gram
 
-    A = X_s^T diag(w) X_s - xbar_s xbar_s^T        (one MXU matmul)
+    A = X_s^T diag(w) X_s - xbar_s xbar_s^T        (one matmul)
 
 and run Gauss-Seidel CD entirely in covariance form: each group update is
-O(S q) against VMEM-resident data, with **zero** O(n) work inside the hot
+O(S q) against device-resident data, with **zero** O(n) work inside the hot
 loop.  The O(n) pieces (Gram, residual reconstruction, full-gradient
 invariance) become three large sharded matmuls per lambda.  The two forms
 are algebraically identical: with centered gradient ``g = X~^T W r`` the
@@ -33,8 +33,13 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..bcd import newton_solver
+from .pin_triton import MAX_KERNEL_S, pin_lasso_solve
 
 _PRECISION = jax.lax.Precision.HIGHEST
+
+# Past this screen capacity the q = 1 XLA loop filters its full sweeps
+# (``_full_sweep_q1``) instead of visiting every screened slot.
+FILTERED_SWEEP_MIN_S = 1024
 
 
 # --------------------------------------------------------------------------- #
@@ -48,7 +53,7 @@ def screen_gram(Xs, w, intercept: bool):
     ``Xs`` is (n, S) with zero-padded columns; returns (A, means) where
     ``A = Xs^T diag(w) Xs - means means^T`` (reference
     solver_gaussian_naive.hpp:53-133 computes this per group + eigh; here one
-    MXU matmul for the whole screen set).  Assumes sum(w) == 1 when
+    matmul for the whole screen set).  Assumes sum(w) == 1 when
     ``intercept`` (reference normalizes weights, solver.py).
 
     With ``configs.compensated_reductions`` the contraction runs through the
@@ -73,9 +78,8 @@ def screen_gram(Xs, w, intercept: bool):
 
 @functools.partial(jax.jit, static_argnames=("intercept",))
 def _screen_gram_plain(Xs, w, intercept: bool):
-    # configs.matmul_precision governs the Gram contraction (measured
-    # v5e tradeoffs in configs.py / benchmark/gram_probe.py); read at
-    # trace time per the configs contract.
+    # configs.matmul_precision governs the Gram contraction (see
+    # configs.py); read at trace time per the configs contract.
     from ..configs import matmul_precision_value
 
     prec = matmul_precision_value()
@@ -112,14 +116,13 @@ def screen_gram_extend(A_pad, Xs, Xnew, w, means_pad, s_old, intercept: bool):
     The BASIL screen set only ever grows by appending groups
     (``extend_screen_set``), so the old Gram is the leading principal block
     of the new one.  Instead of recomputing the full (S, S) Gram (one
-    S^2 n matmul — the dominant non-CD cost late in the path, BENCH_r02
-    kernels.screen_gram), compute only the new cross block
-    ``Xs^T diag(w) Xnew`` (S x dS, cost S dS n) and scatter it into the
-    padded buffers.  ``A_pad``/``means_pad`` are already padded to the new
-    capacities with the old values in their leading block; ``Xs`` already
-    contains the new columns (insert_cols); ``Xnew`` is the (n, dS_pad)
-    zero-padded buffer of the new columns and ``s_old`` the (traced) old
-    S_val offset.
+    S^2 n matmul — the dominant non-CD cost late in the path), compute
+    only the new cross block ``Xs^T diag(w) Xnew`` (S x dS, cost S dS n)
+    and scatter it into the padded buffers.  ``A_pad``/``means_pad`` are
+    already padded to the new capacities with the old values in their
+    leading block; ``Xs`` already contains the new columns (insert_cols);
+    ``Xnew`` is the (n, dS_pad) zero-padded buffer of the new columns and
+    ``s_old`` the (traced) old S_val offset.
 
     Returns (A, means) identical (up to f.p. association) to a full
     ``screen_gram`` over the extended block.
@@ -202,34 +205,15 @@ def _compact(mask):
 
     Sweeping over the COMPACTED index list instead of cond-skipping all G
     slots is the difference between O(n_active) and O(G_cap) sequential
-    fori iterations per active-set pass — at EUR-surrogate scale
-    (screen ~10k groups, active ~300) the cond-skip loop's ~12us/slot
-    dispatch overhead was 97% of the entire warm fit (BENCH_r04 phases:
-    fit_screen 39.5 of 40.8 s).  Visit order is unchanged (ascending), so
-    iterates are bit-identical to the cond-skip formulation."""
+    fori iterations per active-set pass — on LD-structured designs the
+    screen set can hold ~30x as many groups as the active set.  Visit
+    order is unchanged (ascending), so iterates are bit-identical to the
+    cond-skip formulation."""
     idx = jnp.nonzero(mask, size=mask.shape[0], fill_value=0)[0]
     return idx, jnp.sum(mask).astype(jnp.int32)
 
 
-def _make_plan(mask, consts):
-    """Compact ``mask`` into a sweep plan: (idx, n, pos, akk, pk).
-
-    The per-update gathers (positions, diagonals, penalties) are hoisted
-    HERE — once per phase/selection — because TPU gathers over a
-    G_cap-sized buffer cost milliseconds; re-running them inside every
-    sweep of an active-phase while_loop dominated the solve when they
-    lived in the sweep itself."""
-    (A, slot_begin, slot_size, eigvals, eigvecs, penalty, *_) = consts
-    idx, n = _compact(mask)
-    if eigvals.shape[1] != 1:
-        return idx, n, None, None, None
-    pos = slot_begin[idx]
-    akk = eigvals[idx, 0]
-    pk = penalty[idx].astype(A.dtype)
-    return idx, n, pos, akk, pk
-
-
-def _sweep(carry, consts, plan, update_active=True):
+def _sweep(carry, consts, plan):
     """One Gauss-Seidel pass over the slots listed in ``plan`` (reference
     coordinate_descent, solver_gaussian_pin_naive.hpp:26-168, in cov
     form).
@@ -245,7 +229,7 @@ def _sweep(carry, consts, plan, update_active=True):
     idx, n = plan[0], plan[1]
 
     if qmax == 1:
-        return _sweep_q1(carry, consts, plan, update_active)
+        return _sweep_q1(carry, consts, plan)
 
     def body(k, loop_carry):
         beta, grad, is_active, rsq, convg = loop_carry
@@ -264,8 +248,8 @@ def _sweep(carry, consts, plan, update_active=True):
             )
             V = eigvecs[i]
             lam = eigvals[i]
-            beta_t = V.T @ beta_g
-            g_t = V.T @ grad_g
+            beta_t = jnp.matmul(V.T, beta_g, precision=_PRECISION)
+            g_t = jnp.matmul(V.T, grad_g, precision=_PRECISION)
             v_t = g_t + lam * beta_t
             pk = penalty[i]
             x_t, _ = newton_solver(
@@ -283,10 +267,11 @@ def _sweep(carry, consts, plan, update_active=True):
                 convg_c = jnp.sum(lam * d_t * d_t) / qf
                 convg = jnp.maximum(convg, convg_c)
                 rsq = rsq + jnp.sum(d_t * (2.0 * g_t - d_t * lam))
-                beta_new_g = V @ x_t
+                beta_new_g = jnp.matmul(V, x_t, precision=_PRECISION)
                 dbeta_g = jnp.where(mask, beta_new_g - beta_g, 0.0)
                 Acols = jax.lax.dynamic_slice(A, (jnp.zeros((), b.dtype), b), (S, qmax))
-                grad = grad - Acols @ dbeta_g
+                grad = grad - jnp.matmul(Acols, dbeta_g,
+                                         precision=_PRECISION)
                 new_w = jnp.where(mask, beta_new_g, beta_w)
                 beta = jax.lax.dynamic_update_slice(beta, new_w, (b,))
                 is_active = is_active.at[i].set(True)
@@ -303,38 +288,17 @@ def _sweep(carry, consts, plan, update_active=True):
     return beta, grad, is_active, rsq, convg
 
 
-def _sweep_q1(carry, consts, plan, update_active=True):
+def _sweep_q1(carry, consts, plan):
     """Lasso fast path: all groups size 1, closed-form soft threshold per
     coordinate (reference update_coordinate scalar overload,
     solver_gaussian_pin_base.hpp:181-196) — no eigvec rotation, no Newton.
-
-    On TPU/f32 the compacted sweep runs as ONE Pallas kernel with the
-    Gram HBM-resident and per-update row DMA (pin_pallas.cd_sweep_rows_
-    pallas) — the XLA fori_loop below costs ~200 us of while-loop
-    machinery per sequential update, the kernel ~10 VPU row ops.
-    ``update_active=False`` (active-only sweeps, where every listed slot
-    is already active) skips the G_cap-sized scatter back into the
-    active flags."""
+    (Where the kernel table has a lasso kernel, ``pin_cov_solve`` hands
+    the whole solve to it and this loop serves only S > MAX_KERNEL_S.)"""
     (A, slot_begin, slot_size, eigvals, eigvecs, penalty,
      l1, l2, newton_tol, newton_max_iters, dbeta_tol) = consts
     beta0, grad0, is_active0, rsq0 = carry
     S = A.shape[0]
-    G = eigvals.shape[0]
-    idx, n, pos, akk, pk = plan
-
-    if A.dtype == jnp.float32 and jax.default_backend() == "tpu":
-        from .pin_pallas import cd_sweep_rows_pallas
-
-        beta, grad, moved, convg, rsq = cd_sweep_rows_pallas(
-            A, beta0, grad0, pos, akk, pk, n, l1, l2, rsq0,
-        )
-        if update_active:
-            # padded entries (k >= n) have moved == 0: the scatter-max is
-            # a no-op there even though their idx slots alias slot 0
-            is_active = is_active0.at[idx].max(moved > 0)
-        else:
-            is_active = is_active0
-        return beta, grad, is_active, rsq, convg
+    idx, n = plan[0], plan[1]
 
     def body(k, loop_carry):
         beta, grad, is_active, rsq, convg = loop_carry
@@ -376,7 +340,7 @@ def _sweep_q1(carry, consts, plan, update_active=True):
     return beta, grad, is_active, rsq, convg
 
 
-def _full_sweep_q1(carry, consts, plan_valid, update_active=True):
+def _full_sweep_q1(carry, consts, plan_valid):
     """Screen-set sweep, q == 1: vectorize the GRADIENT phase, serialize
     only the UPDATE phase (SURVEY section 7 design stance).
 
@@ -390,8 +354,7 @@ def _full_sweep_q1(carry, consts, plan_valid, update_active=True):
     certificate still guards the final iterate).  Selection size tracks
     the ACTIVE count, so a full sweep costs one vector op plus
     O(n_active) sequential steps instead of O(n_screen) — the screen set
-    can be 30x the active set on LD-structured designs (EUR surrogate:
-    10,259 screened vs 271 active, BENCH_r04)."""
+    can be 30x the active set on LD-structured designs."""
     (A, slot_begin, slot_size, eigvals, eigvecs, penalty,
      l1, l2, newton_tol, newton_max_iters, dbeta_tol) = consts
     beta0, grad0, is_active0, rsq0 = carry
@@ -407,36 +370,30 @@ def _full_sweep_q1(carry, consts, plan_valid, update_active=True):
     bnew = jnp.where(vthr > 0, jnp.sign(u) * vthr
                      / jnp.where(denom > 0, denom, 1.0), 0.0)
     sel = valid & (bnew != bk)
-    return _sweep_q1(carry, consts, _make_plan(sel, consts))
+    return _sweep_q1(carry, consts, _compact(sel))
 
 
-def _pin_lasso_pallas_dispatch(
+def _pin_lasso_kernel_dispatch(
     A, grad, beta, slot_begin, slot_size, eigvals, penalty, is_active,
-    lmda, alpha, tol, dbeta_tol, max_iters, rsq,
+    l1, l2, tol, stall_floor, max_iters, rsq, interpret,
 ):
-    """Adapt (G_cap,)-shaped slot buffers to the (S_cap,)-positional Pallas
-    lasso kernel (q == 1: slot_begin[i] == i for valid slots; invalid slots
-    scatter into the never-valid dump position S-1)."""
-    from .pin_pallas import pin_lasso_solve_pallas
-
+    """Adapt (G_cap,)-shaped slot buffers to the (S_cap,)-positional lasso
+    kernel (q == 1: one position per valid slot; invalid slots scatter out
+    of bounds and are dropped)."""
     S = A.shape[0]
     m = slot_size > 0
-    pos = jnp.where(m, slot_begin, S - 1)
-    diag_s = jnp.zeros((S,), A.dtype).at[pos].set(
-        jnp.where(m, eigvals[:, 0], 0.0)
-    )
-    pen_s = jnp.ones((S,), A.dtype).at[pos].set(
-        jnp.where(m, penalty.astype(A.dtype), 1.0)
-    )
-    valid_s = jnp.zeros((S,), bool).at[pos].set(m)
-    act_s = jnp.zeros((S,), bool).at[pos].set(is_active & m)
+    pos = jnp.where(m, slot_begin, S)
 
-    beta_n, grad_n, act_n, rsq_n, iters, done = pin_lasso_solve_pallas(
-        A, grad, beta, diag_s, valid_s, act_s, pen_s,
-        lmda, alpha, tol, dbeta_tol,
-        max_iters.astype(A.dtype), rsq,
+    def at_pos(fill, vals):
+        return jnp.full((S,), fill, vals.dtype).at[pos].set(vals, mode="drop")
+
+    beta_n, grad_n, act_n, rsq_n, iters, done = pin_lasso_solve(
+        A, grad, beta, at_pos(0.0, eigvals[:, 0]),
+        at_pos(False, m), at_pos(False, is_active & m),
+        at_pos(1.0, penalty.astype(A.dtype)),
+        l1, l2, tol, stall_floor, max_iters, rsq, interpret=interpret,
     )
-    active_out = act_n[pos] & m
+    active_out = act_n[jnp.minimum(pos, S - 1)] & m
     return beta_n, grad_n, active_out, rsq_n, iters, done
 
 
@@ -469,24 +426,6 @@ def pin_cov_solve(
     converged).
     """
     dtype = beta.dtype
-    # Pallas fast paths: the whole solve as ONE kernel with all state
-    # VMEM-resident (pin_pallas.py); trace-time dispatch, TPU only
-    from .pin_pallas import MAX_PALLAS_S
-
-    if (
-        eigvals.shape[1] == 1
-        and A.shape[0] <= MAX_PALLAS_S
-        and A.dtype == jnp.float32  # f64 tracing recurses in Mosaic emulation
-        and jax.default_backend() == "tpu"
-    ):
-        return _pin_lasso_pallas_dispatch(
-            A, grad, beta, slot_begin, slot_size, eigvals, penalty,
-            is_active, lmda, alpha, tol, dbeta_tol, max_iters, rsq,
-        )
-    # grouped (q > 1) solves stay on the XLA loop below: the whole-solve
-    # grouped Pallas kernel was removed in r5 after measuring 0.6-0.8x the
-    # XLA loop on v5e twice (see pin_pallas.py tombstone note)
-
     l1 = lmda * alpha
     l2 = lmda * (1.0 - alpha)
     # dtype-feasibility floor + floor-gated stall detection: f64-calibrated
@@ -503,6 +442,19 @@ def pin_cov_solve(
     lam_max = jnp.maximum(jnp.max(jnp.abs(eigvals)), 1.0)
     tol = jnp.maximum(tol, 100.0 * lam_max * (10.0 * eps) ** 2)
     stall_floor = 1e8 * lam_max * eps * eps
+
+    # lasso solves run as one kernel where the kernel table has one
+    # (kernels.py); grouped (q > 1) solves stay on the XLA loop below
+    from ..kernels import choose
+
+    kernel = choose(dtype)
+    if kernel and eigvals.shape[1] == 1 and A.shape[0] <= MAX_KERNEL_S:
+        return _pin_lasso_kernel_dispatch(
+            A, grad, beta, slot_begin, slot_size, eigvals, penalty,
+            is_active, l1, l2, tol, stall_floor, max_iters, rsq,
+            interpret=kernel == "interpret",
+        )
+
     consts = (A, slot_begin, slot_size, eigvals, eigvecs, penalty,
               l1, l2, newton_tol, newton_max_iters, dbeta_tol)
 
@@ -514,13 +466,13 @@ def pin_cov_solve(
         return (slow >= 3) & (convg <= stall_floor)
 
     valid = slot_size > 0
-    plan_valid = _make_plan(valid, consts)
+    plan_valid = _compact(valid)
 
     def active_phase(state):
         beta, grad, is_active, rsq, iters = state
         # the active set is FIXED throughout this phase (active sweeps
         # only revisit already-active slots), so compact + gather once
-        plan_a = _make_plan(is_active & valid, consts)
+        plan_a = _compact(is_active & valid)
 
         def cond(c):
             _, _, _, _, convg, slow, it = c
@@ -530,17 +482,13 @@ def pin_cov_solve(
         def body(c):
             beta, grad, is_active, rsq, prev, slow, it = c
             beta, grad, is_active, rsq, convg = _sweep(
-                (beta, grad, is_active, rsq), consts, plan_a,
-                update_active=False,
-            )
+                (beta, grad, is_active, rsq), consts, plan_a)
             return (beta, grad, is_active, rsq, convg,
                     _slow_count(slow, convg, prev), it + 1)
 
         # always at least one active sweep (reference solve_active :181-215)
         beta, grad, is_active, rsq, convg = _sweep(
-            (beta, grad, is_active, rsq), consts, plan_a,
-            update_active=False,
-        )
+            (beta, grad, is_active, rsq), consts, plan_a)
         beta, grad, is_active, rsq, convg, _, iters = jax.lax.while_loop(
             cond, body,
             (beta, grad, is_active, rsq, convg,
@@ -555,17 +503,15 @@ def pin_cov_solve(
         # (done stays False -> reported as a genuine failure)
         return (~done) & (iters < max_iters) & (~stalled) & ~jnp.isnan(convg)
 
-    # Filtered full sweeps only in the big-S regime (past the whole-solve
-    # Pallas kernel's VMEM cap, where O(S) sequential GS passes are the
-    # wall-clock problem).  Small problems keep exact Gauss-Seidel
-    # semantics: the filtered sweep's mover SELECTION branches on
-    # knife-edge f32 comparisons, which lets SPMD-vs-single-device
-    # reduction-order noise flip a selection and perturb trajectories
-    # past the test suite's strict equality tolerances.
-    from .pin_pallas import MAX_PALLAS_S as _S_CAP
-
+    # Filtered full sweeps only in the big-S regime, where O(S) sequential
+    # GS passes are the wall-clock problem.  Small problems keep exact
+    # Gauss-Seidel semantics: the filtered sweep's mover SELECTION
+    # branches on knife-edge f32 comparisons, which lets
+    # SPMD-vs-single-device reduction-order noise flip a selection and
+    # perturb trajectories past the test suite's strict equality
+    # tolerances.
     full_sweep = (_full_sweep_q1
-                  if eigvals.shape[1] == 1 and A.shape[0] > _S_CAP
+                  if eigvals.shape[1] == 1 and A.shape[0] > FILTERED_SWEEP_MIN_S
                   else _sweep)
 
     def outer_body(state):

@@ -1,10 +1,10 @@
 """Shared screened coordinate-descent engine for the standalone solvers
 (BVLS, pinball).
 
-TPU re-design of the reference's ``solver_bvls.hpp`` / ``solver_pinball.hpp``
+Device re-design of the reference's ``solver_bvls.hpp`` / ``solver_pinball.hpp``
 fit loops: instead of O(n) residual touches per coordinate, the screened
 columns are gathered once and the CD runs in **covariance form** against a
-VMEM-resident Gram (same design as the pin solver, see pin.py).  The whole
+device-resident Gram (same design as the pin solver, see pin.py).  The whole
 fit — screen sweeps, active-set refinement, pruning, loss tracking — is one
 jitted device call over fixed-capacity masked buffers; the host only drives
 KKT screening rounds (one big matmul each).

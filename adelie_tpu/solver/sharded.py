@@ -5,7 +5,7 @@ This is the full per-lambda device computation of the gaussian path solver
 expressed as one jittable function over a row-sharded design block.  Under a
 ``jax.sharding.Mesh`` with the observation axis sharded, XLA inserts
 all-reduce collectives for the three contractions (Gram ``Xs^T W Xs``, full
-gradient ``X^T W r``, residual update) — the TPU-native replacement for the
+gradient ``X^T W r``, residual update) — the device-native replacement for the
 reference's OpenMP row-blocked kernels (matrix/utils.hpp, SURVEY.md 2.12).
 """
 

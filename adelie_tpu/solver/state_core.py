@@ -1,6 +1,6 @@
 """Host-side solver state + device screen-cache.
 
-TPU-native replacement for the reference's C++ state classes
+Device-native replacement for the reference's C++ state classes
 (``state/state_base.hpp:58-100``, ``state_gaussian_naive``, ``state_glm_naive``)
 and their Python factories (``adelie/state.py``):
 
@@ -57,7 +57,7 @@ def abs_grad_kernel(grad, cols_padded, beta_padded, penalty_cols, group_ids,
     beta_cols = jnp.zeros_like(grad).at[safe].set(beta_padded, mode="drop")
     # multiply (penalty * beta) first: at the huge-lambda dry fit beta is
     # nonzero only where penalty == 0, so the product is exactly 0 and the
-    # large l2_scale never meets a nonzero operand (TPU f64 has f32 range).
+    # large l2_scale never meets a nonzero operand (safe in f32 range).
     gadj = grad - l2_scale * (penalty_cols * beta_cols)
     sq = jax.ops.segment_sum(gadj * gadj, group_ids, num_segments=num_groups)
     return jnp.sqrt(jnp.maximum(sq, 0.0))
@@ -119,8 +119,8 @@ class ScreenCache:
         gather is a prefix of the new one we gather ONLY the new columns and
         (in rebuild_weighted, if the weights are unchanged) extend the Gram
         with one S x dS cross matmul instead of recomputing S^2
-        (screen_gram_extend; addresses the screen-Gram recompute cost
-        flagged at 43% MXU share in BENCH_r02).
+        (screen_gram_extend; the full recompute is the dominant non-CD
+        cost late in the path).
         """
         if self._try_extend_structure(state):
             return
@@ -362,7 +362,7 @@ class NaiveStateBase:
     setup_lmda_max: bool = True
     setup_lmda_path: bool = True
     n_threads: int = 1  # accepted for API parity; unused
-    # lambdas fitted per device call (BASIL batching; TPU-specific knob).
+    # lambdas fitted per device call (BASIL batching; device knob).
     # Frozen (post-early-exit / post-KKT-failure) scan iterations cost
     # almost nothing, so large chunks only reduce dispatch+RTT overhead
     # (measured: 100 beats 25 by ~11% on the n=40k x p=2000 headline)

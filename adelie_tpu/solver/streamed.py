@@ -769,7 +769,7 @@ def build_streamed_constrained_chunk_step(pn_cfg):
                 # cooperative watchdog guard (see fused.py:100-104): the
                 # chunk's total CD sweeps are bounded so an effectively
                 # stuck constrained pin solve cannot spin the device
-                # program past the TPU worker watchdog
+                # program past the platform watchdog
                 cum_n = cum + iters
                 stopped_n = (~done) | early | (cum_n >= sweep_budget)
 

@@ -7,7 +7,7 @@
 // indices (chunk_size = 256, io_snp_unphased.hpp:157-160).
 //
 // In addition to the reference's decode-to-dense, this codec decodes
-// straight into the TPU-friendly **2-bit packed** layout (4 entries per
+// straight into the device-friendly **2-bit packed** layout (4 entries per
 // byte, column-major) that the device matrix classes unpack on the fly
 // inside their matmuls (adelie_tpu/matrix/snp.py).
 //

@@ -711,7 +711,8 @@ def gaussian_pin_cov(*, A, v, groups=None, alpha: float = 1.0, penalty=None,
             from .configs import configs as _cfg
 
             for lm in lmda_path:
-                grad_s = v_s - jnp.matmul(A_ss, beta)
+                grad_s = v_s - jnp.matmul(A_ss, beta,
+                                          precision="highest")
                 beta, _, active, rsq, _, done = pin_cov_solve(
                     A_ss, grad_s,
                     beta, slot_begin, slot_size, eigvals, eigvecs,

@@ -59,9 +59,8 @@ def large_lmda(dtype) -> float:
     """A finite 'lambda ~ infinity' used for the lmda_max dry fit.
 
     The reference uses 1e-3 * numeric_limits<double>::max() / max_penalty
-    (solver_base.hpp:500-515).  TPU f64 is emulated with float32 *range*
-    (values above ~3.4e38 overflow), so the surrogate must be f32-range-safe
-    in every dtype; 1e30 exceeds any realistic lambda_max by >20 orders of
+    (solver_base.hpp:500-515).  The surrogate must be f32-range-safe
+    (values above ~3.4e38 overflow) in every dtype; 1e30 exceeds any realistic lambda_max by >20 orders of
     magnitude, which is all the dry fit needs (SURVEY.md section 7
     'Numerics').
     """

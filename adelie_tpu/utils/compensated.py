@@ -1,6 +1,6 @@
 """Compensated float32 reductions (chunked Kahan accumulation).
 
-TPU has no native float64 (x64 requests truncate to f32), so the big
+The f32 device paths keep their big reductions in f32, so the big
 reductions — the gradient ``X^T (v w)`` that drives KKT checks and the
 screen Gram ``Xs^T diag(w) Xs`` that drives CD — carry an accumulation
 error that grows with ``n`` and keeps f32 paths from reaching the
@@ -8,11 +8,11 @@ reference's f64-calibrated tolerances (reference solves at tol=1e-7 in
 double, adelie/solver.py:366-377).
 
 This module attacks the dominant error term, sequential accumulation over
-the observation axis, with an error-free-transform scheme that stays on
-the MXU:
+the observation axis, with an error-free-transform scheme that stays in
+matmuls:
 
 - the n axis is split into chunks; each chunk's contribution is one
-  ``Precision.HIGHEST`` matmul (full MXU utilization, per-chunk error
+  ``Precision.HIGHEST`` matmul (full matmul throughput, per-chunk error
   bounded by the chunk length, not n);
 - chunk partials are combined with Kahan compensated summation
   (`two_sum` error-free transforms inside a ``lax.scan``), so the
@@ -23,7 +23,7 @@ observations / 4096-chunk ~ 24x; in practice 1-2 digits). Enabled by
 ``configs.compensated_reductions`` — see `adelie_tpu.configs`.
 
 No reference counterpart (the reference simply computes in f64);
-this is the TPU-native answer to the same accuracy requirement.
+this is the device-native answer to the same accuracy requirement.
 """
 
 import functools
@@ -113,7 +113,7 @@ def mul_tn(X, v, chunk: int = 4096):
     use pairwise two_sum compensation, and cross-chunk accumulation is a
     two-float (hi, err) carry.  Result error ~ O(eps) + O(n eps^2 cond) —
     effectively f64-quality for the KKT gradient while every op stays f32
-    (Ogita-Rump-Oishi Dot2; no f64 on TPU).
+    (Ogita-Rump-Oishi Dot2; no f64 needed).
     """
     n, p = X.shape
     k, c = _chunk(n, chunk)

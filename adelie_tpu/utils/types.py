@@ -3,7 +3,7 @@
 The reference defines C++ enums (``util::screen_rule_type``,
 ``util::tie_method_type``, ...) plus ``convert_*`` helpers that translate
 user-facing strings once, at the API boundary, and raise on anything
-unknown.  The TPU-first equivalent keeps the *strings* (they are static,
+unknown.  The device-first equivalent keeps the *strings* (they are static,
 trace-time configuration — nothing device-side ever branches on them) but
 centralizes the vocabulary and the validation here, so a typo'd
 ``screen_rule`` fails at ``grpnet(...)`` entry with the full list of valid

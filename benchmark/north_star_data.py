@@ -2,12 +2,12 @@
 
 The north star is a full lambda-path group lasso on a **1M-SNP x
 100K-sample** PLINK-scale matrix (``BASELINE.json`` north_star;
-``BASELINE.md:20``).  Packed 2-bit that is p x ceil(n/4) = 25 GB — more
-than a v5e's 16 GB HBM, so it exercises the host-streaming matrix
-(``matrix/_snp_stream.py``), mirroring the reference's mmap streaming
-design (``io_snp_base.hpp:25-87``).
+``BASELINE.md:20``).  Packed 2-bit that is p x ceil(n/4) = 25 GB: device
+resident where the device-memory budget holds it, else streamed from host
+memory (``matrix/_snp_stream.py``, mirroring the reference's mmap
+streaming design, ``io_snp_base.hpp:25-87``).
 
-Synthesis must run on THIS host's single CPU core, so it avoids
+Synthesis avoids
 generating 25 GB of fresh randomness: a 256 MB **pool** of LUT-mapped
 bytes (the byte-LUT maps uniform bytes onto the 4-lane {0,1,2} dosage
 product distribution, ~86/10/4%) is generated once, and each SNP row is
@@ -27,7 +27,10 @@ import numpy as np
 N = int(os.environ.get("ADELIE_TPU_NORTH_STAR_N", 100_000))
 P = int(os.environ.get("ADELIE_TPU_NORTH_STAR_P", 1_000_000))
 NB = (N + 3) // 4                    # bytes per SNP row (25_000 at scale)
-CACHE_DIR = os.environ.get("ADELIE_TPU_NORTH_STAR_DIR", "/tmp/north_star")
+CACHE_DIR = os.environ.get(
+    "ADELIE_TPU_NORTH_STAR_DIR",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 ".bench_data", "north_star"))
 PACKED_PATH = os.path.join(CACHE_DIR, f"packed_p{P}_n{N}.u8")
 Y_PATH = os.path.join(CACHE_DIR, f"y_p{P}_n{N}.npz")
 

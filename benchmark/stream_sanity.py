@@ -1,8 +1,8 @@
-"""Moderate-scale streamed sanity on real hardware (TPU_RUNBOOK step 2).
+"""Moderate-scale streamed sanity on the device.
 
 Forces streaming at a size that also fits HBM, so the streamed result can
 be pinned against the in-HBM fit on the same chip, and reports achieved
-H2D stream bandwidth before committing to the 25 GB north-star run.
+H2D stream bandwidth.
 """
 
 import sys
@@ -48,14 +48,6 @@ def main(p=100_000, n=20_000):
          0.5 * rng.standard_normal(n)).astype(np.float32)
 
     kw = dict(lmda_path_size=30, min_ratio=5e-2, progress_bar=False)
-
-    # probe the live transport (serializes tile copies when queued puts
-    # degrade it, e.g. through a tunneled device) before timing anything
-    import os
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    from bench import _h2d_transport_probe
-    print("transport:", _h2d_transport_probe(), flush=True)
 
     Xs = ad.matrix.snp_unphased(io, streaming=True, dtype=np.float32)
     w = jnp.full((n,), 1.0 / n, jnp.float32)

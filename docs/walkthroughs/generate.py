@@ -6,7 +6,7 @@ into the rendered document — so every number in docs/walkthroughs/*.md
 is a real executed result, reference-user-guide style (VERDICT r3 #10).
 
 Run from the repo root (CPU is fine; the GWAS walkthrough notes which
-figures came from the TPU bench):
+figures come from the GPU runs in PERF.md):
 
     JAX_PLATFORMS=cpu python docs/walkthroughs/generate.py
 """
@@ -58,7 +58,7 @@ W1 = [
 
      40 groups of 5 features; 6 groups carry signal.  This mirrors the
      reference user guide's `grpnet` quickstart (reference
-     docs/sphinx/user_guide) on the TPU-native API.
+     docs/sphinx/user_guide) on the device-native API.
      """,
      """
      import numpy as np
@@ -136,8 +136,8 @@ W2 = [
      The reference workflow (examples.ipynb): read `.bed`, convert per
      chromosome to the packed `.snpdat` codec, concatenate
      `[covariates | SNPs]` with zero penalty on covariates.  Here we
-     synthesize a small cohort; the full-scale numbers below come from
-     the TPU bench.
+     synthesize a small cohort; the full-scale numbers are in PERF.md
+     (`chip_smoke.py` phase 3).
      """,
      """
      import os
@@ -164,11 +164,11 @@ W2 = [
      ## Build the matrix and fit
 
      `snp_unphased` keeps the 2-bit packing on device and decodes inside
-     a fused Pallas matmul kernel on TPU.  Above
-     `configs.snp_hbm_budget` (8 GB) the factory automatically switches
-     to the HOST-STREAMING matrix: packed bytes stay in host RAM and
-     full-p products sweep 64K-SNP tiles through the chip
-     (`streaming="auto"`).
+     a fused decode-matvec kernel on the GPU.  Above
+     `configs.snp_hbm_budget` (half the device memory JAX may use) the
+     factory automatically switches to the HOST-STREAMING matrix: packed
+     bytes stay in host RAM and full-p products sweep 64K-SNP tiles through
+     the device (`streaming="auto"`).
      """,
      """
      covars = rng.standard_normal((n, 3)).astype(np.float32)
@@ -197,12 +197,8 @@ W2 = [
      used here to show the API; the fit matches the in-HBM path at
      solver tolerance (pinned to 1e-9 in tests/test_snp_stream.py).
 
-     At full GWAS scale on a TPU v5e (from `bench.py`, BENCH_r04):
-
-     - p=200k x n=50k in-HBM (2.5 GB packed): cold 82.5 s / warm 1.17 s
-     - the 1M x 100k north star (25 GB packed > HBM) runs on ONE chip
-       via streaming; see BENCH_r04's `north_star_1m_x_100k_streamed`
-       and BASELINE.json.
+     At full GWAS scale (p=200k x n=50k, 2.5 GB packed) the path runs
+     device-resident on one H100; its cold and warm times are in PERF.md.
      """,
      """
      Xs = ad.matrix.snp_unphased(io1, streaming=True, dtype=np.float32)
@@ -391,7 +387,7 @@ if __name__ == "__main__":
         "Walkthrough: GWAS — PLINK to streamed SNP group lasso",
         "The flagship workload: PLINK-shaped data through the `.snpdat` "
         "codec into the packed SNP matrix, with the host-streaming path "
-        "that runs 25 GB cohorts through one chip.",
+        "that runs panels larger than device memory.",
         W2, "gwas_streamed.md")
     run_walkthrough(
         "Walkthrough: constrained GLMs",

@@ -241,7 +241,7 @@ def test_constrained_chunked_matches_per_lambda():
 def test_pn_vs_admm_block_solves():
     """Both constrained block-solve methods must agree (VERDICT r1 #5):
     the reference's dual proximal Newton (NNLS/pinball inner solvers,
-    constraint/utils.hpp) vs the TPU ADMM redesign, including
+    constraint/utils.hpp) vs the device ADMM redesign, including
     ill-conditioned eigenvalue spectra."""
     import adelie_tpu.constraint as ct
 

@@ -157,57 +157,119 @@ def test_snp_bed_bad_magic(tmp_path):
         ad.io.snp_bed(f, n_samples=4).read()
 
 
-def test_snp_mul_pallas_parity():
-    """Fused Pallas decode-matmul vs numpy dense (interpret mode)."""
-    import jax.numpy as jnp
-    from adelie_tpu.matrix._snp_pallas import snp_mul_pallas
+def _packed_case(rng, p, n):
     from adelie_tpu.matrix._snp import unpack_2bit_np
 
+    nb = (n + 3) // 4
+    packed = rng.integers(0, 256, size=(p, nb), dtype=np.int64).astype(np.uint8)
+    rem = n % 4
+    if rem:
+        packed[:, -1] &= (1 << (2 * rem)) - 1
+    impute = rng.uniform(0, 2, p).astype(np.float32)
+    codes = unpack_2bit_np(packed, n).astype(np.float32)
+    return packed, impute, codes
+
+
+@pytest.mark.parametrize("na", [True, False])
+def test_snp_mul_pallas_parity(na):
+    """Fused decode-matvec kernel (Triton route, interpret mode) vs numpy
+    dense, with p and n off the tile multiples; NA and NA-free variants."""
+    import jax.numpy as jnp
+    from adelie_tpu.matrix._snp_triton import snp_mul
+
     rng = np.random.default_rng(0)
-    for (p, n) in [(10, 9), (300, 257), (513, 1000)]:
-        nb = (n + 3) // 4
-        packed = rng.integers(0, 256, size=(p, nb), dtype=np.int64).astype(np.uint8)
-        rem = n % 4
-        if rem:
-            packed[:, -1] &= (1 << (2 * rem)) - 1
-        impute = rng.uniform(0, 2, p).astype(np.float32)
+    for (p, n) in [(10, 9), (300, 257), (513, 1000), (17, 2049)]:
+        packed, impute, codes = _packed_case(rng, p, n)
         u = rng.standard_normal(n).astype(np.float32)
-        codes = unpack_2bit_np(packed, n).astype(np.float32)
-        dense = np.where(codes == 3, impute[:, None], codes)
-        expect = dense @ u
-        got = np.asarray(snp_mul_pallas(
-            jnp.asarray(packed), jnp.asarray(u), jnp.asarray(impute),
-            interpret=True,
+        if na:
+            expect = np.where(codes == 3, impute[:, None], codes) @ u
+        else:
+            expect = codes @ u
+        got = np.asarray(snp_mul(
+            jnp.asarray(packed), jnp.asarray(u),
+            jnp.asarray(impute) if na else None, interpret=True,
         ))
         np.testing.assert_allclose(got, expect, rtol=2e-5, atol=1e-4)
 
 
-def test_snp_mul_many_pallas_parity():
-    """Multi-residual fused decode-matmul vs numpy dense (interpret mode).
+def test_mul_many_xla_parity():
+    """Multi-residual decode-matmul of the streamed path vs numpy dense.
 
     This is the streamed-KKT workhorse: one pass over the packed bytes
     computes X^T u_c for every residual stream c of a lambda chunk."""
     import jax.numpy as jnp
-    from adelie_tpu.matrix._snp_pallas import snp_mul_many_pallas
-    from adelie_tpu.matrix._snp import unpack_2bit_np
+    from adelie_tpu.matrix._snp_stream import _mul_many_xla
 
     rng = np.random.default_rng(1)
     for (p, n, C) in [(10, 9, 3), (300, 257, 8), (513, 1000, 1)]:
-        nb = (n + 3) // 4
-        packed = rng.integers(0, 256, size=(p, nb), dtype=np.int64).astype(np.uint8)
-        rem = n % 4
-        if rem:
-            packed[:, -1] &= (1 << (2 * rem)) - 1
-        impute = rng.uniform(0, 2, p).astype(np.float32)
+        packed, impute, codes = _packed_case(rng, p, n)
         U = rng.standard_normal((C, n)).astype(np.float32)
-        codes = unpack_2bit_np(packed, n).astype(np.float32)
-        dense = np.where(codes == 3, impute[:, None], codes)
-        expect = dense @ U.T                       # (p, C)
-        got = np.asarray(snp_mul_many_pallas(
-            jnp.asarray(packed), jnp.asarray(U), jnp.asarray(impute),
-            interpret=True,
+        expect = np.where(codes == 3, impute[:, None], codes) @ U.T
+        got = np.asarray(_mul_many_xla(
+            jnp.asarray(packed), jnp.asarray(U), jnp.asarray(impute), n=n,
+            CH=128,
         ))
         np.testing.assert_allclose(got, expect, rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("phased,mesh", [(False, False), (True, False),
+                                         (False, True)])
+def test_snp_mul_spec_kernel_dispatch(phased, mesh, tmp_path):
+    """The SNP matrices' gradient takes the kernel under
+    configs.kernels="interpret" (per device + psum on a mesh) and agrees
+    with the XLA decode path."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from adelie_tpu.configs import set_configs
+
+    n, p = 203, 37
+    f = str(tmp_path / "k.snpdat")
+    if phased:
+        d = ad.data.snp_phased_ancestry(n, p, 2, seed=4)
+        ad.io.snp_phased_ancestry(f).write(d["X"], d["ancestries"], 2)
+        io = ad.io.snp_phased_ancestry(f).read()
+        make = ad.matrix.snp_phased_ancestry
+    else:
+        ad.io.snp_unphased(f).write(_unphased_data(n, p, seed=4))
+        io = ad.io.snp_unphased(f).read()
+        make = ad.matrix.snp_unphased
+    kw = {"mesh": Mesh(np.asarray(jax.devices()[:4]), ("n",))} if mesh else {}
+    rng = np.random.default_rng(2)
+    v = jnp.asarray(rng.standard_normal(n), jnp.float32)
+    w = jnp.asarray(rng.uniform(0.5, 1.5, n) / n, jnp.float32)
+    outs = {}
+    try:
+        for mode in ("xla", "interpret"):
+            set_configs("kernels", mode)
+            m = make(io, dtype=np.float32, **kw)
+            fn, data = m.mul_spec()
+            outs[mode] = np.asarray(jax.jit(fn)(data, v, w))
+    finally:
+        set_configs("kernels", None)
+    assert outs["xla"].shape == (m.cols(),)
+    np.testing.assert_allclose(outs["interpret"], outs["xla"], rtol=2e-5,
+                               atol=1e-5)
+
+
+def test_snp_kernel_lowers_to_triton():
+    """Both SNP kernel variants lower for CUDA through the Triton route at
+    the GWAS width (p = 200k SNPs x n = 50k samples)."""
+    import jax
+    import jax.numpy as jnp
+    from jax import export
+
+    from adelie_tpu.matrix._snp_triton import snp_mul
+
+    dis = [export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")]
+    for imp in (jax.ShapeDtypeStruct((200_000,), jnp.float32), None):
+        exp = export.export(
+            jax.jit(lambda a, b, c: snp_mul(a, b, c)), platforms=("cuda",),
+            disabled_checks=dis,
+        )(jax.ShapeDtypeStruct((200_000, 12_500), jnp.uint8),
+          jax.ShapeDtypeStruct((50_000,), jnp.float32), imp)
+        assert "xla.gpu.triton" in exp.mlir_module()
 
 
 def test_corrupt_file_errors():

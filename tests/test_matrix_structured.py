@@ -346,7 +346,7 @@ def test_sparse_layouts_match_dense(layout):
 def test_sparse_auto_layout_selection():
     rng = np.random.default_rng(22)
     # dense-ish (>= 0.2% density, small footprint) -> densify (the
-    # measured v5e crossover, matrix/_sparse.py _DENSE_DENSITY_MIN)
+    # crossover, matrix/_sparse.py _DENSE_DENSITY_MIN)
     n, p = 60, 10
     Zd = rng.standard_normal((n, p)) * (rng.uniform(size=(n, p)) < 0.2)
     assert mx.sparse(sp.csc_matrix(Zd)).layout == "dense"

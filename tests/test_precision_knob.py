@@ -1,10 +1,9 @@
 """configs.matmul_precision: the Gram contraction precision knob.
 
-Measured v5e tradeoffs in benchmark/gram_probe.py (r4): "highest" lowers
-to ~6 bf16 passes (rel err 3.3e-7 vs f64), "x3" to 3 passes (1.7x faster,
-rel err 1.2e-5), "default" to 1 pass.  These tests pin the plumbing
-(mapping, validation, solver equivalence at the x3 tolerance), not the
-device timings.
+Each value's error against f64 and its time on the card are printed by
+chip_smoke.py phase 1.  These tests pin the plumbing (mapping,
+validation, solver equivalence at the x3 tolerance), not the device
+timings.
 """
 
 import numpy as np

@@ -377,7 +377,7 @@ def test_streamed_cv_serial_fallback(tmp_path):
 
 
 def test_streamed_f32_matches_inhbm(tmp_path):
-    """f32 (the real-TPU dtype) streamed == in-HBM f32 — de-risks the
+    """f32 (the device dtype) streamed == in-HBM f32 — de-risks the
     hardware north-star run, which streams in f32."""
     io, data = _make_io(tmp_path, 300, 96, seed=7, name="f32.snpdat")
     y = np.asarray(data["glm"].y).astype(np.float32)
